@@ -1,9 +1,9 @@
-"""image_processor_pipeline_tpu — TPU-native batch image-augmentation framework.
+"""image_processor_pipeline_tpu — batch image-augmentation framework on JAX.
 
 A ground-up rebuild of the capabilities of Tezahc/image_processor_pipeline
 (directory-to-directory augmentation pipelines for YOLO detection training),
-re-architected for TPUs: transforms execute as jit-compiled JAX/XLA programs
-(Pallas kernels for the hot paths) over HBM-resident padded NHWC batches, fed
+re-architected for accelerators: transforms execute as jit-compiled JAX/XLA
+programs over device-resident padded NHWC batches, fed
 by host-side async decode, with the batch axis shardable across a device mesh.
 
 External API parity targets (reference file:line cited per module):

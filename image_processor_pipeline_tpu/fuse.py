@@ -2,8 +2,9 @@
 
 The framework's biggest measured end-to-end advantage over the reference
 is stage fusion: one device program + one materialization instead of a
-disk round-trip per stage (maskclean_fused 2.23x vs 1.30x for the same
-2-stage pipeline; video config 7.4x — benchmarks/e2e_results.json).  But
+disk round-trip per stage (on the CPU backend, earlier rounds measured
+maskclean_fused at 2.23x vs 1.30x for the same 2-stage pipeline against
+the reference, and the video config at 7.4x).  But
 a pipeline migrated 1:1 from the reference (reference pipeline.py:538,
 564-566 runs every transform as its own directory-to-directory stage) is
 written as per-stage steps and only gets fusion if the user hand-rewrites

@@ -2,9 +2,9 @@
 
 XLA wants static shapes; real directories hold mixed-size images.  Strategy
 (SURVEY.md §7 'hard part #1'): round each image's (H, W) up to a bucket
-canvas (powers-of-two-ish ladder, always a multiple of the TPU lane/sublane
-tile), group items by canvas, and batch groups to fixed batch sizes so the
-jit cache stays small.  Per-image true extents travel alongside as an
+canvas (powers-of-two-ish ladder, always a multiple of 128 so canvases
+tile evenly), group items by canvas, and batch groups to fixed batch sizes
+so the jit cache stays small.  Per-image true extents travel alongside as an
 int32 [B, 2] 'sizes' array; device ops maintain the zeros-outside-valid
 invariant (ops/geometry.py).
 """
@@ -18,8 +18,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 
 # Canvas ladder: multiples of 128 up to 1024, then multiples of 512.
-# Multiples of 128 keep the lane dimension tiled; sublane min is 8 so any
-# multiple of 128 is safe for both H and W.
+# Multiples of 128 tile evenly into 16-pixel JPEG iMCUs and wide vector
+# accesses on both H and W.
 _LADDER = [128, 256, 384, 512, 640, 768, 896, 1024, 1536, 2048, 3072, 4096]
 
 

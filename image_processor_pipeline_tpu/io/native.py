@@ -1,8 +1,8 @@
 """ctypes bindings for the native IO engine (native/ipp_io.cpp).
 
-Builds the shared library on first use (g++ + libjpeg/libpng, both baked
-into the image) and degrades gracefully to the PIL path when unavailable —
-`available()` gates every fast path.
+Builds the shared library on first use (g++ + the libjpeg, libpng and
+libdeflate development packages) and degrades gracefully to the PIL path
+when they are absent — `available()` gates every fast path.
 """
 
 from __future__ import annotations
@@ -17,70 +17,87 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).parent.parent / "native"
-_SO_PATH = _NATIVE_DIR / "build" / "libipp_io.so"
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
 
 
+def _host_id() -> str:
+    """What a -march=native build depends on: this host's CPU model and
+    ISA flags (from /proc/cpuinfo) and its machine type."""
+    import platform
+
+    keys = ("model name", "flags")
+    seen = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                k, _, v = line.partition(":")
+                k = k.strip()
+                if k in keys and k not in seen:
+                    seen[k] = v.strip()
+    except OSError:
+        pass
+    return "|".join([platform.machine()] + [seen.get(k, "") for k in keys])
+
+
+def build_stamp(sources: Sequence[Path]) -> str:
+    """Hash of the sources a library is built from plus the host it is
+    built for; kept beside the .so so a library built from other sources
+    or on another machine is never loaded."""
+    import hashlib
+
+    h = hashlib.sha256(_host_id().encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def load_native_library(so_name: str, source: str, bind,
+                        native_dir: Path = _NATIVE_DIR):
+    """Build ``native_dir/build/<so_name>`` from ``source`` + the Makefile
+    unless its stamp (build_stamp) matches, then dlopen it and ``bind`` its
+    symbols.  Returns None when the build or the binding fails — a
+    library that was not built here from these sources is never used."""
+    import fcntl
+
+    build = native_dir / "build"
+    so_path = build / so_name
+    stamp_path = build / (so_name + ".stamp")
+    sources = [native_dir / source, native_dir / "Makefile"]
+    stamp = build_stamp(sources)
+    build.mkdir(exist_ok=True)
+    # an flock serializes the check-and-build across processes
+    with open(build / ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        fresh = (so_path.exists() and stamp_path.exists()
+                 and stamp_path.read_text() == stamp)
+        if not fresh:
+            stamp_path.unlink(missing_ok=True)
+            try:
+                subprocess.run(
+                    ["make", "-s", "-B", f"build/{so_name}"],
+                    cwd=native_dir, check=True, capture_output=True,
+                    timeout=300)
+            except (OSError, subprocess.SubprocessError):
+                return None
+            stamp_path.write_text(stamp)
+    try:
+        lib = ctypes.CDLL(str(so_path))
+        bind(lib)
+    except (OSError, AttributeError):
+        return None
+    return lib
+
+
 def _load():
     global _lib, _build_failed
     with _lock:
-        if _lib is not None or _build_failed:
-            return _lib
-        # rebuild only when the .so is missing or older than its sources
-        # (checked in-process — spawning make per process start is wasteful
-        # and concurrent makes race); an flock serializes first builds
-        # across processes
-        sources = [_NATIVE_DIR / "ipp_io.cpp", _NATIVE_DIR / "Makefile"]
-        stale = (not _SO_PATH.exists()) or any(
-            s.exists() and s.stat().st_mtime > _SO_PATH.stat().st_mtime
-            for s in sources
-        )
-        if stale:
-            try:
-                import fcntl
-
-                (_NATIVE_DIR / "build").mkdir(exist_ok=True)
-                with open(_NATIVE_DIR / "build" / ".lock", "w") as lk:
-                    fcntl.flock(lk, fcntl.LOCK_EX)
-                    subprocess.run(
-                        ["make", "-s"], cwd=_NATIVE_DIR, check=True,
-                        capture_output=True, timeout=120,
-                    )
-            except Exception:
-                if not _SO_PATH.exists():
-                    _build_failed = True
-                    return None
-        try:
-            lib = ctypes.CDLL(str(_SO_PATH))
-            _bind_symbols(lib)
-        except OSError:
-            _build_failed = True
-            return None
-        except AttributeError:
-            # a prebuilt .so that predates newer exports passed the mtime
-            # staleness check (e.g. sources ship older timestamps than a
-            # cached build) — rebuild once and retry; if the fresh binding
-            # still fails (dlopen may pin the old same-inode mapping for
-            # this process), degrade to the PIL path instead of crashing
-            # every caller (ADVICE r2)
-            try:
-                import fcntl
-
-                (_NATIVE_DIR / "build").mkdir(exist_ok=True)
-                with open(_NATIVE_DIR / "build" / ".lock", "w") as lk:
-                    fcntl.flock(lk, fcntl.LOCK_EX)
-                    subprocess.run(
-                        ["make", "-s", "-B"], cwd=_NATIVE_DIR, check=True,
-                        capture_output=True, timeout=120,
-                    )
-                lib = ctypes.CDLL(str(_SO_PATH))
-                _bind_symbols(lib)
-            except Exception:
-                _build_failed = True
-                return None
-        _lib = lib
+        if _lib is None and not _build_failed:
+            _lib = load_native_library("libipp_io.so", "ipp_io.cpp",
+                                       _bind_symbols)
+            _build_failed = _lib is None
         return _lib
 
 

@@ -81,7 +81,6 @@ def _flip_and_params(seed):
             jax.random.uniform(kcol, (), minval=0.7, maxval=1.3),
         ]),
         jax.random.uniform(krgb, (3,), minval=0.75, maxval=1.25),
-        jnp.zeros((2,), jnp.float32),
     ])
     return idx, prm
 
@@ -121,148 +120,70 @@ def _finish_one(img, seed, crop: int = CROP):
     return jnp.concatenate([img, alpha[..., None]], axis=-1)
 
 
+def augment_full_reference(images, y0, x0, angles, enh_params, flips,
+                           crop: int = CROP):
+    """The chain in flip-first order: crop → user dihedral flip →
+    rotate_square_shear → HSV mask → enhance, all per item.
+
+    images: [B, H, W, 3|4] u8 (only RGB is read); y0/x0: [B] crop offsets;
+    angles: [B] degrees; enh_params: [B, 6] (brightness, contrast, color,
+    gain r/g/b); flips: [B] int32 (bit 0 = x-flip, bit 1 = y-flip).
+    Returns [B, crop, crop, 4] u8 RGBA (alpha = color mask).
+    """
+    lowers = jnp.asarray(_FILTER_LOWERS, jnp.float32)
+    uppers = jnp.asarray(_FILTER_UPPERS, jnp.float32)
+    zones = jnp.asarray(_FILTER_ZONES, jnp.int32)
+
+    def one(img, yy, xx, angle, prm, f):
+        img = jax.lax.dynamic_slice(img, (yy, xx, 0), (crop, crop, 3))
+        img = jnp.where((f & 1).astype(bool), jnp.flip(img, axis=1), img)
+        img = jnp.where((f & 2).astype(bool), jnp.flip(img, axis=0), img)
+        img = geometry.rotate_square_shear(img, angle)
+        alpha = color_ops.color_mask_alpha(img, crop, crop, lowers, uppers,
+                                           zones)
+        img = photometric.brightness(img, prm[0])
+        img = photometric.contrast(img, prm[1])
+        img = photometric.color_balance(img, prm[2])
+        img = photometric.channel_gains(img, prm[3:6])
+        return jnp.concatenate([img, alpha[..., None]], axis=-1)
+
+    return jax.vmap(one)(images, y0.astype(jnp.int32), x0.astype(jnp.int32),
+                         angles, enh_params, flips.astype(jnp.int32))
+
+
+ROTATION_MODES = ("shear", "gather", "full_reference")
+
+
 def augment_chain(images, xywhn, seeds, crop: int = CROP,
-                  rotation: str = "shear", images_per_step: int = 4):
+                  rotation: str = "shear"):
     """Batched fused chain: [B, H, W, 3] u8 → [B, crop, crop, 4] u8 (RGBA).
 
-    ``rotation``: 'shear' (XLA bit-decomposed 3-shear, ~19x faster than the
-    gather on TPU), 'pallas' (VMEM-resident Pallas shear kernel), 'gather'
-    (direct nearest inverse map; the parity-exact but slow path),
-    'pallas_fused' (round-1 mega-kernel: XLA crop+flip, one kernel for
-    rotate+mask+enhance), or 'pallas_full' / 'full_reference' (round-2
-    mega-kernel: crop+transpose in-kernel, flips as one fused epilogue —
-    see ops/pallas/augment.py:_augment_full_kernel; accepts RGB or RGBA
-    inputs, RGBA packs for free).
+    ``rotation``: 'shear' (bit-decomposed 3-shear, crop → rotate → flip),
+    'gather' (direct nearest inverse map) or 'full_reference' (the same
+    3-shear in flip-first order, augment_full_reference).  All modes draw
+    identical per-item randomness; the two orders give equally
+    distributed augmentations.
     """
-    if rotation.startswith("pallas_full") or rotation == "full_reference":
-        import functools as _ft
-
-        from image_processor_pipeline_tpu.ops.pallas.augment import (
-            augment_full_reference,
-            augment_fused_pallas_full,
-            pack_rgba,
-        )
-
+    if rotation not in ROTATION_MODES:
+        raise ValueError(f"unknown rotation mode {rotation!r}; "
+                         f"expected one of {ROTATION_MODES}")
+    if rotation == "full_reference":
         y0, x0, angles = jax.vmap(
             lambda im, bb, sd: _crop_params(im.shape, bb, sd, crop)
         )(images, xywhn, seeds)
         flips, prms = jax.vmap(_flip_and_params)(seeds)
-        if rotation == "full_reference":
-            return augment_full_reference(
-                pack_rgba(images), y0, x0, angles, prms, flips,
-                _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES, crop=crop)
-
-        # "pallas_full[:flag,flag]" — debug flags for perf isolation:
-        #   ikc (in-kernel crop), noepi, nosmem, i32crop, pre (prologue
-        #   flips), gath (fused crop+flip gather prologue), interp
-        #   (pallas interpret mode — CPU-testable)
-        flags = set()
-        if ":" in rotation:
-            flags = set(rotation.split(":", 1)[1].split(","))
-        if "gath" in flags and ("ikc" in flags or "i32crop" in flags):
-            # the ikc/i32crop prologues never apply the flip gather, and
-            # flips_in="external" would then silently drop the user flips
-            raise ValueError("'gath' cannot combine with 'ikc'/'i32crop'")
-        if "ikc" in flags or rotation == "pallas_full_ikc" \
-                or "i32crop" in flags:
-            packed = pack_rgba(images)
-        elif "gath" in flags:
-            # VERDICT r3 #4 A/B: ONE u8 indexing pass folds the crop AND
-            # the user dihedral flip (flip-conjugated gather indices), so
-            # the out-of-kernel tail is a single gather instead of
-            # dynamic-slice + flip-epilogue passes.  The kernel then runs
-            # with flips_in="external" (unconjugated shifts, no epilogue).
-            from image_processor_pipeline_tpu.ops.pallas.augment import (
-                _D4_TABLE,
-                _shifts,
-                crop_flip_gather,
-                flip_bits_through_transpose,
-            )
-
-            quad, _, _ = _shifts(angles, crop)
-            bits3 = jnp.asarray(_D4_TABLE)[quad * 4 + flips]
-            fy_in, fx_in = flip_bits_through_transpose(
-                bits3[:, 0], bits3[:, 1], bits3[:, 2])
-            nch = images.shape[-1]
-            cropped = crop_flip_gather(images, y0, x0, fy_in, fx_in, crop)
-            if nch == 3:
-                alpha = jnp.full((*cropped.shape[:-1], 1), 255,
-                                 cropped.dtype)
-                cropped = jnp.concatenate([cropped, alpha], axis=-1)
-            packed = jax.lax.bitcast_convert_type(cropped, jnp.int32)
-            y0 = jnp.zeros_like(y0)
-            x0 = jnp.zeros_like(x0)
-        else:
-            # default fast path: crop in the u8 tiling FIRST, pack the
-            # small crop — packing (u8→int32 retiling) the full canvas and
-            # slicing int32 costs ~2.5x the whole kernel (measured, v5e).
-            # For 3-channel input the alpha concat also happens AFTER the
-            # crop (512² instead of the full canvas — the kernel ignores
-            # input alpha, so only the cropped pixels ever need the 4th
-            # byte); RGBA input skips the concat entirely.
-            nch = images.shape[-1]
-            cropped = jax.vmap(
-                lambda im, yy, xx: jax.lax.dynamic_slice(
-                    im, (yy, xx, 0), (crop, crop, nch))
-            )(images, y0, x0)
-            if nch == 3:
-                alpha = jnp.full((*cropped.shape[:-1], 1), 255,
-                                 cropped.dtype)
-                cropped = jnp.concatenate([cropped, alpha], axis=-1)
-            packed = jax.lax.bitcast_convert_type(cropped, jnp.int32)
-            y0 = jnp.zeros_like(y0)
-            x0 = jnp.zeros_like(x0)
-        fn = _ft.partial(
-            augment_fused_pallas_full,
-            images_per_step=images_per_step,
-            in_kernel_crop=("ikc" in flags
-                            or rotation == "pallas_full_ikc"),
-            flips_in=("prologue" if "pre" in flags
-                      else "external" if "gath" in flags else "epilogue"),
-            _debug_epilogue="noepi" not in flags,
-            _debug_no_smem="nosmem" in flags,
-            interpret="interp" in flags,  # CPU-testable kernel paths
-        )
-        return fn(packed, y0, x0, angles, prms, flips,
-                  _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES, crop=crop)
+        return augment_full_reference(images, y0, x0, angles, prms, flips,
+                                      crop=crop)
 
     cropped, angles = jax.vmap(functools.partial(_crop_one, crop=crop))(
         images, xywhn, seeds
     )
     if rotation == "shear":
         rotated = jax.vmap(geometry.rotate_square_shear)(cropped, angles)
-    elif rotation == "pallas":
-        from image_processor_pipeline_tpu.ops.pallas.rotate import (
-            rotate_square_shear_batch,
-        )
-        rotated = rotate_square_shear_batch(cropped, angles)
-    elif rotation == "gather":
+    else:
         rotated = jax.vmap(
             lambda im, a: geometry.rotate_fixed(im, crop, crop, a)
         )(cropped, angles)
-    elif rotation in ("pallas_fused", "fused_reference"):
-        # Fully fused finish: flip in XLA (free), then ONE kernel for
-        # rotate+mask+enhance (ops/pallas/augment.py).  Stage order is
-        # crop→flip→rotate here (vs crop→rotate→flip elsewhere) — the
-        # composed augmentation distribution is identical.
-        import functools as _ft2
-
-        from image_processor_pipeline_tpu.ops.pallas.augment import (
-            augment_finish_reference,
-            augment_fused_pallas,
-        )
-
-        flips, prms = jax.vmap(_flip_and_params)(seeds)
-        if rotation == "pallas_fused":
-            fn = _ft2.partial(augment_fused_pallas,
-                              images_per_step=images_per_step)
-        else:
-            fn = augment_finish_reference
-        return fn(cropped, angles, prms,
-                  _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES,
-                  flips=flips)
-    else:
-        raise ValueError(f"unknown rotation mode {rotation!r}")
     return jax.vmap(functools.partial(_finish_one, crop=crop))(rotated, seeds)
 
 

@@ -2,7 +2,7 @@
 //
 // Replaces the role the reference delegates to OpenCV/Pillow C cores
 // (reference crop_square.py:34 cv2.imread, utils/utils.py:95 cv2.imwrite):
-// the host-side feeder that keeps the TPU's input pipeline saturated.
+// the host-side feeder that keeps the device's input pipeline saturated.
 // Exposed through a plain C ABI consumed via ctypes (io/native.py).
 //
 // Decoding writes directly into caller-provided zero-padded canvas buffers

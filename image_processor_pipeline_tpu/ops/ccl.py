@@ -5,7 +5,7 @@ Parity target: reference pixels_isolés.py:8-81 — binarize alpha > 1,
 component, zero the alpha of every other component smaller than
 ``min_component_size``, then tight-crop to the surviving alpha bbox.
 
-TPU-first design: no sequential union-find (pointer chasing is hostile to
+Data-parallel design: no sequential union-find (pointer chasing is hostile to
 SIMD); we use iterative min-label propagation — each pixel's label is the
 min of its 8-neighborhood's labels — interleaved with POINTER JUMPING
 (label ← label[label], a data-parallel gather): a pixel's label is always

@@ -10,7 +10,7 @@ math below is the standard (R, G, B) formulation, which is exactly what
 cv2.cvtColor(BGR2HSV) computes on its channel-reversed view, so masks agree.
 
 All pure elementwise math — XLA fuses the whole filter stack into one pass
-over HBM (see also ops/pallas for the hand-fused kernel).
+over device memory.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def rgb_to_hsv_u8(img):
     and the nearest half-integer boundary is ≥ 1/(2v) away while f32
     division error is ≤ ~0.07/v — so any ≤4-ulp divide rounds identically
     to cv2's double-precision cvRound (verified against cv2 exhaustively
-    over all 2²⁴ triples, and per-entry on TPU by benchmarks/tpu_checks.py).
+    over all 2²⁴ triples).
     """
     r = img[..., 0].astype(jnp.int32)
     g = img[..., 1].astype(jnp.int32)

@@ -6,13 +6,13 @@ Invariant maintained by every op here: pixels outside the valid region are 0.
 
 Batched variants are provided via jax.vmap (suffix ``_batch``).
 
-Parity targets (behavior only, fresh TPU-first implementation):
+Parity targets (behavior only, fresh implementation):
   - dihedral flips          reference symmetry.py:114-119 (cv2.flip 1/0/-1)
   - square / border crops   reference crop_square.py:196, recadrages.py:13-61
   - rotate with expand      reference rotations.py:96-109 (PIL rotate(expand=True))
   - tight content bbox      reference recadrages.py:63-82 (PIL getbbox)
   - separable resize        reference overlays.py:129 (PIL LANCZOS resize),
-                            done TPU-first as two MXU matmuls with
+                            done as two matmuls with
                             on-device interpolation-weight matrices.
 """
 
@@ -635,17 +635,18 @@ def shear13_bits_for(size: int) -> int:
     return max(bits, 4)
 
 
+# the scope names these passes in profiler traces (bench.py --trace)
+@jax.named_scope("shear")
 def _row_shift(img, shifts, axis: int = 1, bits: int = 9):
     """Shift each row (axis=1) or column (axis=0) by a per-index amount,
     zero-filling vacated pixels — NO gather.
 
     The per-row shift t is decomposed into binary components of
     u = t + 2^(bits-1) >= 0: for each bit k the rows with that bit set take
-    a UNIFORM circular roll by 2^k, selected per row (roll+select are pure
-    VPU ops XLA fuses); a final constant roll removes the offset and an
-    analytic validity mask kills wrapped pixels.  ~`bits` fused passes
-    instead of a per-element gather — this is what makes arbitrary-angle
-    rotation bandwidth-bound on TPU instead of gather-bound.
+    a UNIFORM circular roll by 2^k, selected per row (roll+select are
+    elementwise ops XLA fuses); a final constant roll removes the offset
+    and an analytic validity mask kills wrapped pixels.  ~`bits` fused
+    passes instead of a per-element gather.
     """
     size = img.shape[axis]
     offset = 1 << (bits - 1)
@@ -676,9 +677,8 @@ def rotate_square_shear(img, angle_deg):
 
     Each shear is a per-row (or per-column, via transpose) integer shift —
     a pure pixel permutation, so no resampling artifacts beyond nearest
-    rounding — executed as batched row dynamic-slices instead of the
-    per-element gather of `rotate_fixed` (~50x faster on TPU; the gather
-    path measured 1.7 ms/image at 512px on v5e, this path is bandwidth-bound).
+    rounding — executed as roll+select passes instead of the per-element
+    gather of `rotate_fixed`.
 
     Multiples of 90° are handled exactly by rot90; the residual angle in
     [-45°, 45°] goes through the shears.  Pixels leaving the frame are cut,
@@ -745,7 +745,7 @@ def shear_params(angle_deg, H: int):
 
 
 # ---------------------------------------------------------------------------
-# separable resize via interpolation-matrix matmuls (MXU path)
+# separable resize via interpolation-matrix matmuls
 # ---------------------------------------------------------------------------
 
 def _filter_fn(name: str):
@@ -804,8 +804,8 @@ def resize(img, h, w, out_h, out_w, method: str = "lanczos",
            out_canvas: Tuple[int, int] = None):
     """Separable resize of the valid region to (out_h, out_w).
 
-    TPU-first: builds row/column interpolation matrices on device and runs
-    two matmuls (MXU) instead of a gather-based warp.  Replaces PIL
+    Builds row/column interpolation matrices on device and runs two
+    matmuls instead of a gather-based warp.  Replaces PIL
     Image.resize(..., LANCZOS) at reference overlays.py:129.
 
     Returns the resized image on an ``out_canvas`` (defaults to the input
@@ -819,10 +819,15 @@ def resize(img, h, w, out_h, out_w, method: str = "lanczos",
     imf = img.astype(jnp.float32)
     # PIL resamples horizontally first and materializes a rounded uint8
     # intermediate, then resamples vertically — match that rounding order.
-    tmp = jnp.einsum("pw,hwc->hpc", Ax, imf, preferred_element_type=jnp.float32)
+    # HIGHEST: the default f32 matmul precision on a GPU is TF32, whose
+    # ~3 decimal digits break the rint boundaries of the PIL contract
+    hi = jax.lax.Precision.HIGHEST
+    tmp = jnp.einsum("pw,hwc->hpc", Ax, imf, precision=hi,
+                     preferred_element_type=jnp.float32)
     if is_int:
         tmp = jnp.clip(jnp.rint(tmp), 0, 255)
-    out = jnp.einsum("oh,hpc->opc", Ay, tmp, preferred_element_type=jnp.float32)
+    out = jnp.einsum("oh,hpc->opc", Ay, tmp, precision=hi,
+                     preferred_element_type=jnp.float32)
     if is_int:
         out = jnp.clip(jnp.rint(out), 0, 255).astype(img.dtype)
     else:

@@ -15,15 +15,11 @@ libraries (cv2 / PIL).
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import threading
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = Path(__file__).parent.parent / "native"
-_SO_PATH = _NATIVE_DIR / "build" / "libipp_cpu.so"
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
@@ -85,35 +81,14 @@ def _bind_symbols(lib) -> None:
 def _load():
     global _lib, _build_failed
     with _lock:
-        if _lib is not None or _build_failed:
-            return _lib
-        sources = [_NATIVE_DIR / "ipp_cpu.cpp", _NATIVE_DIR / "Makefile"]
-        stale = (not _SO_PATH.exists()) or any(
-            s.exists() and s.stat().st_mtime > _SO_PATH.stat().st_mtime
-            for s in sources
-        )
-        if stale:
-            try:
-                import fcntl
+        if _lib is None and not _build_failed:
+            from image_processor_pipeline_tpu.io.native import (
+                load_native_library,
+            )
 
-                (_NATIVE_DIR / "build").mkdir(exist_ok=True)
-                with open(_NATIVE_DIR / "build" / ".lock", "w") as lk:
-                    fcntl.flock(lk, fcntl.LOCK_EX)
-                    subprocess.run(
-                        ["make", "-s"], cwd=_NATIVE_DIR, check=True,
-                        capture_output=True, timeout=120,
-                    )
-            except Exception:
-                if not _SO_PATH.exists():
-                    _build_failed = True
-                    return None
-        try:
-            lib = ctypes.CDLL(str(_SO_PATH))
-            _bind_symbols(lib)
-        except (OSError, AttributeError):
-            _build_failed = True
-            return None
-        _lib = lib
+            _lib = load_native_library("libipp_cpu.so", "ipp_cpu.cpp",
+                                       _bind_symbols)
+            _build_failed = _lib is None
         return _lib
 
 

@@ -52,7 +52,7 @@ def exact_mean_round_half_up(lum, n, mask=None):
     """floor(sum(lum)/n + 0.5) with an EXACT integer tie decision.
 
     PIL's Contrast mean is ``int(ImageStat.mean + 0.5)`` computed in double;
-    we have no f64 on TPU, so: estimate the mean from an exactly-split
+    device f64 is slow or absent, so: estimate the mean from an exactly-split
     (hi/lo uint16-limb) float total, then correct it with the exact integer
     residual d = sum(lum) - m̂·n, computed as a wrap-exact int32 sum of
     per-pixel (lum - m̂) — intermediate int32 overflow is modular and the

@@ -1,10 +1,10 @@
 """Multi-host scaling helpers (SURVEY.md §5.8 / §2.5).
 
 The reference's parallelism ends at one host's process pool
-(reference pipeline.py:358-433).  On a TPU pod slice, the equivalent is:
+(reference pipeline.py:358-433).  Across hosts, the equivalent is:
 
-  - `initialize_distributed()`: jax.distributed.initialize — DCN handles
-    job-level control, ICI carries any collective traffic.
+  - `initialize_distributed()`: jax.distributed.initialize — the coordinator
+    handles job-level control; collectives ride the interconnect.
   - `host_shard()`: deterministic per-host split of a file list — each host
     decodes only the items its addressable devices will consume, mirroring
     "each worker process owns its items" from the reference's pool.

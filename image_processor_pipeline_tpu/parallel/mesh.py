@@ -2,7 +2,7 @@
 
 The workload is embarrassingly parallel per image (SURVEY.md §2.5): the
 reference's only parallelism is a per-file process pool
-(reference pipeline.py:358-433).  The TPU-native equivalent:
+(reference pipeline.py:358-433).  The device-mesh equivalent:
 
   - **data parallelism**: the batch axis sharded over the ``data`` mesh axis
     with shard_map — each chip augments its own sub-batch, zero collectives

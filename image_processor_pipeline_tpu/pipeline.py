@@ -183,20 +183,6 @@ class ProcessingStep:
     def run(self, progress: bool = True) -> Counter:
         print(f"[step] {self.name}: starting")
         t0 = time.perf_counter()
-        # opt-in persistent XLA compile cache (IPP_COMPILE_CACHE=<dir>)
-        import os as _os
-
-        cache_dir = _os.environ.get("IPP_COMPILE_CACHE")
-        if cache_dir:
-            from image_processor_pipeline_tpu.utils.profiling import (
-                enable_compilation_cache,
-            )
-
-            if cache_dir.lower() in ("1", "true", "yes", "on"):
-                # flag form: use a stable per-user default location
-                cache_dir = _os.path.join(
-                    _os.path.expanduser("~"), ".cache", "ipp_xla")
-            enable_compilation_cache(cache_dir)
         for d in self.output_paths:
             d = Path(d)
             # overwrite protection (the reference leaves this as a TODO at
@@ -562,6 +548,7 @@ class ProcessingStep:
                 if dd and dd_stats.get("n"):
                     djpeg.note_decode_dense(
                         transform, dd_stats["dense"], dd_stats["n"])
+                    self.metrics.device_decoded += dd_stats["n"]
             with timer.measure("device"):
                 if use_native:
                     out_dev = transform.launch_batch_native(

@@ -1,4 +1,4 @@
-"""Isolated-pixel cleanup — batched TPU transform (connected components).
+"""Isolated-pixel cleanup — batched device transform (connected components).
 
 Behavior parity with reference pixels_isolés.py:8-81 (keep_largest_component):
   - PNG-only gate; requires an alpha channel (AttributeError otherwise)

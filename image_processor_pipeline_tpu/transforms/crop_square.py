@@ -1,4 +1,4 @@
-"""Square crop around YOLO bboxes — batched TPU transform.
+"""Square crop around YOLO bboxes — batched device transform.
 
 Behavior parity with reference crop_square.py:104-224
 (process_square_crop_around_bbox):
@@ -14,7 +14,7 @@ Behavior parity with reference crop_square.py:104-224
   - outputs: <out_imgs>/<image name>, <out_labels>/<label name>
     (crop_square.py:220-222), label lines 'cls cx cy w h' 6-decimal
 
-TPU-first: the placement draw, crop (circular roll + mask), and bbox
+Device-first: the placement draw, crop (circular roll + mask), and bbox
 recalibration all run inside one jitted batched program; host only decodes,
 stacks, and re-encodes.
 """

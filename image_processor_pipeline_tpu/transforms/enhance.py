@@ -1,4 +1,4 @@
-"""Photometric enhancement — batched TPU transform ('sample' pairing consumer).
+"""Photometric enhancement — batched device transform ('sample' pairing consumer).
 
 Behavior parity with reference tranfo.py:9-55 (enhance_image):
   - Brightness, Contrast, Color each scaled by uniform(0.7, 1.3)

@@ -1,4 +1,4 @@
-"""HSV color-mask → transparency — batched TPU transform.
+"""HSV color-mask → transparency — batched device transform.
 
 Behavior parity with reference filtres_liste.py:41-149
 (process_images_with_color_masks):
@@ -10,8 +10,7 @@ Behavior parity with reference filtres_liste.py:41-149
   - output name ``{prefix}_{stem}.png`` (underscore only with a prefix),
     always PNG (filtres_liste.py:138)
 
-The whole filter stack is one fused elementwise device program
-(see ops/pallas/augment.py for the hand-fused HSV-mask kernel used on TPU).
+The whole filter stack is one fused elementwise device program.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Overlay alpha-compositing + YOLO label synthesis — batched TPU transform.
+"""Overlay alpha-compositing + YOLO label synthesis — batched device transform.
 
 Behavior parity with reference overlays.py:24-187
 (paste_overlay_onto_background, the current non-deprecated variant):
@@ -7,11 +7,13 @@ Behavior parity with reference overlays.py:24-187
     background diagonal, capped so the overlay fits at its aspect ratio
     (overlays.py:104-121); final dims via int() truncation of
     h = sqrt(d²/(ar²+1)), w = int(ar·h) (overlays.py:125-126)
-  - LANCZOS resize (overlays.py:129) — here two MXU matmuls
+  - LANCZOS resize (overlays.py:129) — here two matmuls
   - uniform random placement, inclusive randint bounds (overlays.py:133-134)
   - PIL alpha paste (overlays.py:138-139)
   - one YOLO label line for the paste bbox, class ``yolo_class_id``
-    (overlays.py:141-149); label has NO trailing newline (overlays.py:172-173)
+    (overlays.py:141-149), computed on the host from the integer paste
+    geometry (label_values); label has NO trailing newline
+    (overlays.py:172-173)
   - outputs ``{overlay_stem}{background_suffix}`` and ``{overlay_stem}.txt``
     (overlays.py:165-166); partial outputs removed on save failure
     (overlays.py:182-187)
@@ -27,7 +29,6 @@ import jax
 import jax.numpy as jnp
 
 from image_processor_pipeline_tpu.transforms.base import BatchTransform
-from image_processor_pipeline_tpu.ops import bbox as bbox_ops
 from image_processor_pipeline_tpu.ops import compose, geometry
 from image_processor_pipeline_tpu.io.images import (
     decode_padded,
@@ -40,8 +41,8 @@ from image_processor_pipeline_tpu.utils.utils import validate_dirs
 def _draw_geometry(seed, ov_h, ov_w, bg_h, bg_w, scale_min, scale_max):
     """Per-item random paste geometry (sizing math of reference
     overlays.py:104-134).  Shared by the device program AND the native
-    twin's draw evaluation so sizes/positions/labels are identical across
-    backends regardless of which computes the pixels."""
+    twin's draw evaluation so sizes and positions are identical whichever
+    computes the pixels."""
     key = jax.random.PRNGKey(seed)
     kr, kx, ky = jax.random.split(key, 3)
 
@@ -72,9 +73,24 @@ def _draw_geometry(seed, ov_h, ov_w, bg_h, bg_w, scale_min, scale_max):
         ky, (), 0, jnp.maximum(bg_h - new_hi, 0) + 1
     )
 
-    xyxy = jnp.stack([px, py, px + new_wi, py + new_hi]).astype(jnp.float32)
-    xywhn = bbox_ops.xyxy2xywhn(xyxy, bwf, bhf)
-    return new_hi, new_wi, py, px, ok, xywhn
+    return new_hi, new_wi, py, px, ok
+
+
+def label_values(pos, new_size, bg_size) -> np.ndarray:
+    """The paste box as YOLO (cx, cy, w, h), from the integer geometry.
+
+    ``ops.bbox.xyxy2xywhn``'s f32 formula, evaluated in numpy on the host:
+    its sums are exact on integers and numpy's divides are correctly
+    rounded, so every backend writes the same label text (XLA:GPU's f32
+    divide is not correctly rounded and would move a value by an ulp,
+    and a printed 6-decimal tie with it)."""
+    py, px = (np.float32(v) for v in pos)
+    nh, nw = (np.float32(v) for v in new_size)
+    bh, bw = (np.float32(v) for v in bg_size)
+    two = np.float32(2)
+    return np.asarray([(px + (px + nw)) / two / bw,
+                       (py + (py + nh)) / two / bh, nw / bw, nh / bh],
+                      np.float32)
 
 
 def _muldiv255(v, a):
@@ -85,7 +101,7 @@ def _muldiv255(v, a):
 
 def _paste_one(ov, ov_h, ov_w, bg, bg_h, bg_w, seed,
                scale_min: float, scale_max: float):
-    new_hi, new_wi, py, px, ok, xywhn = _draw_geometry(
+    new_hi, new_wi, py, px, ok = _draw_geometry(
         seed, ov_h, ov_w, bg_h, bg_w, scale_min, scale_max)
 
     Hb, Wb = bg.shape[0], bg.shape[1]
@@ -108,7 +124,6 @@ def _paste_one(ov, ov_h, ov_w, bg, bg_h, bg_w, seed,
     out = compose.alpha_paste(bg, bg_h, bg_w, resized, new_hi, new_wi, py, px)
     return {
         "image": out,
-        "xywhn": xywhn,
         "ok": ok,
         "pos": jnp.stack([py, px]),
         "new_size": jnp.stack([new_hi, new_wi]),
@@ -180,7 +195,7 @@ class PasteOverlayOntoBackground(BatchTransform):
     def _native_draws(cls, seeds, ov_sizes, bg_sizes, scale_min, scale_max):
         """Evaluate the per-item jax.random paste geometry through the SAME
         traced _draw_geometry the device program uses (identical draws →
-        identical sizes/positions/labels across backends), padded to a
+        identical sizes and positions across backends), padded to a
         power-of-two batch length to bound retraces."""
         if cls._draw_jit is None:
             cls._draw_jit = jax.jit(jax.vmap(
@@ -206,15 +221,15 @@ class PasteOverlayOntoBackground(BatchTransform):
         """Native CPU twin (ops/native_cpu.py:overlay_batch): Pillow's
         premultiplied fixed-point LANCZOS resample + Paste.c blend —
         byte-identical to the reference's PIL composite (a STRONGER parity
-        than the jit path's f32 resample, which is PIL ±1).  Geometry and
-        labels come from the device program's exact draws either way."""
+        than the jit path's f32 resample, which is PIL ±1).  Geometry
+        comes from the device program's exact draws either way."""
         from image_processor_pipeline_tpu.ops import native_cpu
 
         if not native_cpu.available():
             return None
         scale_min, scale_max = static
         seeds = np.asarray(batch["seed"], np.uint32)
-        new_h, new_w, py, px, ok, xywhn = self._native_draws(
+        new_h, new_w, py, px, ok = self._native_draws(
             seeds, batch["ov_size"], batch["bg_size"], scale_min, scale_max)
         geo = np.stack(
             [new_h, new_w, py, px, ok.astype(np.int32)], axis=1)
@@ -225,7 +240,6 @@ class PasteOverlayOntoBackground(BatchTransform):
             return None
         return {
             "image": outs,
-            "xywhn": xywhn,
             "ok": ok,
             "pos": np.stack([py, px], axis=1),
             "new_size": np.stack([new_h, new_w], axis=1),
@@ -238,6 +252,8 @@ class PasteOverlayOntoBackground(BatchTransform):
     # sparse quantized coefficients come back.  Byte-identical to the
     # pixel path (test_transforms pins it).
     shrinks_output = True
+    #: per-item outputs the save needs beside the pixels
+    _GEO_KEYS = ("ok", "pos", "new_size")
 
     def shrink_output(self, out_dev, chunk, options):
         img = out_dev["image"]
@@ -268,7 +284,7 @@ class PasteOverlayOntoBackground(BatchTransform):
             options, n_valid)
         if out is None:
             return None
-        out.update(xywhn=out_dev["xywhn"], ok=out_dev["ok"])
+        out.update({k: out_dev[k] for k in self._GEO_KEYS})
         self.start_host_copy(out)
         return out
 
@@ -278,7 +294,7 @@ class PasteOverlayOntoBackground(BatchTransform):
         from image_processor_pipeline_tpu.ops import jpeg as djpeg
 
         return djpeg.materialize_jpeg_batch(out_dev, n,
-                                            per_item_keys=("xywhn", "ok"))
+                                            per_item_keys=self._GEO_KEYS)
 
     def save_item(
         self,
@@ -294,7 +310,8 @@ class PasteOverlayOntoBackground(BatchTransform):
             print(f"[overlays] degenerate overlay size for {ov_path.name}")
             return None
         bh, bw = (int(x) for x in item["bg_size"])
-        cx, cy, wn, hn = (float(x) for x in out["xywhn"])
+        cx, cy, wn, hn = (float(x) for x in label_values(
+            out["pos"], out["new_size"], item["bg_size"]))
         cls_id = options.get("yolo_class_id", 0)
         label_line = f"{cls_id} {cx:.6f} {cy:.6f} {wn:.6f} {hn:.6f}"
 

@@ -35,6 +35,7 @@ import numpy as np
 
 from image_processor_pipeline_tpu.transforms.overlays import (
     PasteOverlayOntoBackground,
+    label_values,
 )
 from image_processor_pipeline_tpu.transforms.recadrages import BorderCrop
 from image_processor_pipeline_tpu.io.images import encode_image
@@ -82,7 +83,8 @@ class OverlaysBorderCrop(PasteOverlayOntoBackground):
             print(f"[ovlborder] degenerate overlay size for {ov_path.name}")
             return None
         bh, bw = (int(x) for x in item["bg_size"])
-        cx, cy, wn, hn = (float(x) for x in out["xywhn"])
+        cx, cy, wn, hn = (float(x) for x in label_values(
+            out["pos"], out["new_size"], item["bg_size"]))
         cls_id = options.get("yolo_class_id", 0)
 
         # label first: the unfused overlays stage writes it before the

@@ -1,4 +1,4 @@
-"""Border crop and fit-crop — batched TPU transforms.
+"""Border crop and fit-crop — batched device transforms.
 
 Behavior parity:
   - crop_from_border (reference recadrages.py:13-61): margins given as

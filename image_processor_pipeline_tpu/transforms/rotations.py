@@ -1,4 +1,4 @@
-"""Random rotations — batched TPU transform (1 → N+1 fan-out).
+"""Random rotations — batched device transform (1 → N+1 fan-out).
 
 Behavior parity with reference rotations.py:6-133 (process_rotations):
   - load as RGBA (rotations.py:55)
@@ -13,7 +13,7 @@ Behavior parity with reference rotations.py:6-133 (process_rotations):
     (rotations.py:14-17, 113-116); ``.jpeg`` format maps to ``.jpg``
   - returns None when nothing could be saved (rotations.py:128-130)
 
-TPU-first: all N rotations of a batch run as one jitted program —
+Device-first: all N rotations of a batch run as one jitted program —
 vmap over (batch × rotations) of the inverse-map rotation kernel on an
 expanded square canvas that accommodates the worst-case diagonal.
 """
@@ -42,7 +42,7 @@ def _rotate_one(img, h, w, seed, num_rotations: int,
     """All rotations of one image: returns [N, H, W, 4] + sizes + angles.
 
     method 'nearest' follows PIL's inverse-map sampling exactly (the parity
-    path, gather-bound on TPU); 'shear' uses the Paeth 3-shear permutation
+    path, a per-pixel gather); 'shear' uses the Paeth 3-shear permutation
     (same footprint, ±1 px sampling jitter, ~20x faster) — the content is
     centered on the square diagonal canvas first so the shears rotate about
     the right point, then tight-cropped as usual.

@@ -10,7 +10,6 @@ import jax.numpy as jnp
 
 from image_processor_pipeline_tpu.models.chains import AugmentChain, augment_chain
 from image_processor_pipeline_tpu.ops import geometry
-from image_processor_pipeline_tpu.ops.pallas.rotate import rotate_square_shear_batch
 
 
 class TestShearRotation:
@@ -31,15 +30,6 @@ class TestShearRotation:
             nz_got = got.sum(-1) > 0
             iou = (nz_ref & nz_got).sum() / max(1, (nz_ref | nz_got).sum())
             assert iou > 0.85
-
-    def test_pallas_kernel_matches_xla_shear(self):
-        rng = np.random.default_rng(1)
-        B, S = 2, 64
-        imgs = jnp.asarray(rng.integers(0, 256, (B, S, S, 4), dtype=np.uint8))
-        angles = jnp.asarray([23.0, 301.0], jnp.float32)
-        ref = np.asarray(jax.vmap(geometry.rotate_square_shear)(imgs, angles))
-        got = np.asarray(rotate_square_shear_batch(imgs, angles, interpret=True))
-        np.testing.assert_array_equal(ref, got)
 
     def test_large_canvas_shifts_not_clipped(self):
         """Regression: BITS=9 silently clipped shear shifts at ±255,
@@ -67,39 +57,6 @@ class TestShearRotation:
         out = np.asarray(geometry.rotate_square_shear(img, 10.0))
         # content pixel count preserved (no resampling loss, block well inside)
         assert abs(int((out[..., 0] == 200).sum()) - 400) <= 8
-
-
-class TestFusedAugmentKernel:
-    def test_interpret_matches_reference_within_1(self):
-        from image_processor_pipeline_tpu.ops.pallas.augment import (
-            augment_finish_reference,
-            augment_fused_pallas,
-        )
-
-        rng = np.random.default_rng(0)
-        B, S = 2, 64
-        imgs = jnp.asarray(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8))
-        angles = jnp.asarray([33.0, 287.0], jnp.float32)
-        prms = jnp.asarray(rng.uniform(0.7, 1.3, (B, 8)), jnp.float32)
-        lowers = ((35.0, 60, 60), (100, 40, 40))
-        uppers = ((85.0, 255, 255), (140, 230, 230))
-        zones = ((0, 0, 0, 0), (4, 4, 2, 2))
-        ref = np.asarray(augment_finish_reference(
-            imgs, angles, prms, lowers, uppers, zones))
-        got = np.asarray(augment_fused_pallas(
-            imgs, angles, prms, lowers, uppers, zones, interpret=True))
-        diff = np.abs(ref.astype(int) - got.astype(int))
-        assert diff.max() <= 1  # float rounding-order only
-        assert (ref == got).mean() > 0.999
-
-    def test_chain_fused_reference_mode(self):
-        imgs = np.random.default_rng(0).integers(
-            0, 256, (2, 96, 96, 3), dtype=np.uint8)
-        xy = np.tile(np.asarray([0.5, 0.5, 0.2, 0.2], np.float32), (2, 1))
-        seeds = np.arange(2, dtype=np.uint32)
-        out = jax.jit(augment_chain, static_argnums=(3, 4))(
-            imgs, xy, seeds, 64, "fused_reference")
-        assert np.asarray(out).shape == (2, 64, 64, 4)
 
 
 class TestAugmentChain:
@@ -136,32 +93,56 @@ class TestAugmentChain:
         assert iou > 0.8
 
 
-class TestGatherPrologue:
-    def test_chains_gath_flag_bit_exact(self):
-        """The 'gath' flag (ONE u8 gather folding crop AND user flip,
-        kernel in external-flips mode) equals full_reference exactly —
-        end to end through augment_chain (interpret-mode kernel)."""
-        rng = np.random.default_rng(4)
-        B = 4
-        images = rng.integers(0, 256, (B, 96, 96, 3), np.uint8)
-        xy = np.tile(np.asarray([0.5, 0.5, 0.2, 0.2], np.float32), (B, 1))
-        seeds = np.arange(10, 10 + B, dtype=np.uint32)
-        ref = np.asarray(augment_chain(
-            images, xy, seeds, 64, "full_reference"))
-        got = np.asarray(augment_chain(
-            images, xy, seeds, 64, "pallas_full:gath,interp"))
-        np.testing.assert_array_equal(got, ref)
+class TestFullReference:
+    """rotation='full_reference': the chain in flip-first order."""
 
-    def test_gath_rejects_ikc_combination(self):
-        """'gath' with 'ikc'/'i32crop' would silently drop the user flips
-        (external mode, no gather applied) — must raise instead."""
-        rng = np.random.default_rng(5)
-        images = rng.integers(0, 256, (2, 96, 96, 3), np.uint8)
+    @pytest.mark.parametrize("flip", [0, 1, 2, 3])
+    def test_matches_hand_composition(self, flip):
+        from image_processor_pipeline_tpu.models import chains
+        from image_processor_pipeline_tpu.ops import color as color_ops
+        from image_processor_pipeline_tpu.ops import photometric
+
+        rng = np.random.default_rng(flip)
+        B, SIN, S = 2, 96, 64
+        imgs = rng.integers(0, 256, (B, SIN, SIN, 3), np.uint8)
+        y0 = rng.integers(0, SIN - S + 1, B).astype(np.int32)
+        x0 = rng.integers(0, SIN - S + 1, B).astype(np.int32)
+        angles = np.asarray([23.0, 301.0], np.float32)
+        prms = rng.uniform(0.7, 1.3, (B, 6)).astype(np.float32)
+        flips = np.full((B,), flip, np.int32)
+        got = np.asarray(jax.jit(
+            chains.augment_full_reference, static_argnames="crop")(
+            imgs, y0, x0, angles, prms, flips, crop=S))
+
+        for i in range(B):
+            img = imgs[i, y0[i]:y0[i] + S, x0[i]:x0[i] + S]
+            if flip & 1:
+                img = img[:, ::-1]
+            if flip & 2:
+                img = img[::-1]
+            img = geometry.rotate_square_shear(jnp.asarray(img), angles[i])
+            alpha = color_ops.color_mask_alpha(
+                img, S, S,
+                jnp.asarray(chains._FILTER_LOWERS, jnp.float32),
+                jnp.asarray(chains._FILTER_UPPERS, jnp.float32),
+                jnp.asarray(chains._FILTER_ZONES, jnp.int32))
+            img = photometric.brightness(img, prms[i, 0])
+            img = photometric.contrast(img, prms[i, 1])
+            img = photometric.color_balance(img, prms[i, 2])
+            img = photometric.channel_gains(img, prms[i, 3:6])
+            want = np.concatenate(
+                [np.asarray(img), np.asarray(alpha)[..., None]], axis=-1)
+            np.testing.assert_array_equal(got[i], want)
+
+    @pytest.mark.parametrize("mode", [
+        "pallas", "pallas_fused", "fused_reference", "pallas_full",
+        "pallas_full:gath,interp"])
+    def test_removed_modes_raise(self, mode):
+        imgs = np.zeros((2, 96, 96, 3), np.uint8)
         xy = np.tile(np.asarray([0.5, 0.5, 0.2, 0.2], np.float32), (2, 1))
         seeds = np.arange(2, dtype=np.uint32)
-        for bad in ("pallas_full:gath,ikc", "pallas_full:gath,i32crop"):
-            with pytest.raises(ValueError):
-                augment_chain(images, xy, seeds, 64, bad)
+        with pytest.raises(ValueError, match="unknown rotation mode"):
+            augment_chain(imgs, xy, seeds, 64, mode)
 
 
 class TestMeshSharding:

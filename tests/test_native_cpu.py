@@ -565,7 +565,7 @@ class TestOverlayNative:
             t, {k: jnp.asarray(v) for k, v in batch.items()}, static)
         nat = t.native_fn(batch, static, {}, n_threads=1)
         assert nat is not None
-        for k in ("xywhn", "pos", "new_size", "ok"):
+        for k in ("pos", "new_size", "ok"):
             np.testing.assert_array_equal(
                 np.asarray(dev[k]), np.asarray(nat[k]), err_msg=k)
         d = np.abs(np.asarray(dev["image"], np.int32)

@@ -452,6 +452,30 @@ class TestOverlays:
         outside[y1:y2, x1:x2] = 0
         assert (outside == 0).all()  # background untouched
 
+    def test_label_values_equal_the_f32_box_formula(self):
+        """Labels come from the integer paste geometry on the host, bit for
+        bit the f32 values of ops.bbox.xyxy2xywhn jitted on the CPU."""
+        import jax
+
+        from image_processor_pipeline_tpu.ops import bbox
+        from image_processor_pipeline_tpu.transforms.overlays import (
+            label_values,
+        )
+
+        rng = np.random.default_rng(5)
+        n = 4096
+        bg = rng.integers(1, 4097, (n, 2))
+        new = rng.integers(0, 1 << 12, (n, 2)) % bg + 1
+        pos = rng.integers(0, 1 << 12, (n, 2)) % (bg - new + 1)
+        xyxy = np.stack([pos[:, 1], pos[:, 0], pos[:, 1] + new[:, 1],
+                         pos[:, 0] + new[:, 0]], 1).astype(np.float32)
+        want = np.asarray(jax.jit(jax.vmap(bbox.xyxy2xywhn))(
+            xyxy, bg[:, 1].astype(np.float32), bg[:, 0].astype(np.float32)))
+        got = np.stack([label_values(p, s, b)
+                        for p, s, b in zip(pos, new, bg)])
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
 
 class TestRecadrages:
     def test_border_crop_fraction_and_pixels(self, tmp_path):
